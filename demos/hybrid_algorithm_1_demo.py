@@ -2,7 +2,7 @@
 
 Reference demo scale: 10 chains, 10,240 training samples, 20 epochs,
 20 big moves per chain (the notebook reports ~31 min total on an M1 CPU;
-this runs in well under a minute of device time on one TPU chip).
+here it runs batched on one accelerator).
 """
 
 import os
@@ -10,8 +10,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from flowstate_tpu.experiments import algorithm1
-from flowstate_tpu.utils.config import algorithm1_config
+from flowstate.experiments import algorithm1
+from flowstate.utils.config import algorithm1_config
 
 
 def main(smoke=False):

@@ -9,8 +9,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from flowstate_tpu.experiments import algorithm2
-from flowstate_tpu.utils.config import algorithm2_config
+from flowstate.experiments import algorithm2
+from flowstate.utils.config import algorithm2_config
 
 
 def main(smoke=False):

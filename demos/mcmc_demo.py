@@ -9,8 +9,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from flowstate_tpu.experiments import mcmc_only
-from flowstate_tpu.utils.config import mcmc_only_config
+from flowstate.experiments import mcmc_only
+from flowstate.utils.config import mcmc_only_config
 
 
 def main(smoke=False):

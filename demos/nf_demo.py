@@ -13,14 +13,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.analysis.plots import plot_frequency_heatmap, plot_loss
-from flowstate_tpu.flows import build_circular_flow
-from flowstate_tpu.mcmc import (
+from flowstate.analysis.plots import plot_frequency_heatmap, plot_loss
+from flowstate.flows import build_circular_flow
+from flowstate.mcmc import (
     init_alternating_wells, init_chain_state, run_moves_batch,
     run_production_batch,
 )
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.training import TrainConfig, train
+from flowstate.ops import Box, SystemSpec
+from flowstate.training import TrainConfig, train
 
 
 def main(smoke=False):

@@ -16,11 +16,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.analysis import classify_particles
-from flowstate_tpu.mcmc import (
+from flowstate.analysis import classify_particles
+from flowstate.mcmc import (
     init_tempered_state, run_replica_exchange, temperature_ladder,
 )
-from flowstate_tpu.ops import Box, SystemSpec
+from flowstate.ops import Box, SystemSpec
 
 
 def main(smoke=False):

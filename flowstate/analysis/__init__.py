@@ -1,0 +1,44 @@
+"""Observables and analysis suite (well stats, RDF, plots)."""
+
+from flowstate.analysis.ess import (
+    autocorrelation,
+    effective_sample_size,
+    integrated_autocorr_time,
+    sampling_efficiency,
+)
+from flowstate.analysis.mbar import (
+    mbar_expectation,
+    mbar_free_energies,
+    mbar_log_weights,
+    pt_well_delta_f,
+)
+from flowstate.analysis.rdf import calculate_pair_correlation
+from flowstate.analysis.wells import (
+    OUTSIDE,
+    STATE_LABELS,
+    WELL_A,
+    WELL_B,
+    average_free_energy,
+    calculate_well_statistics,
+    classify_particles,
+    state_histogram_counts,
+    well_centers,
+)
+
+from flowstate.analysis.plots import (
+    ICL_COLOR_CYCLE,
+    get_icl_heatmap_cmap,
+    set_icl_color_cycle,
+)
+
+__all__ = [
+    "classify_particles", "calculate_well_statistics",
+    "state_histogram_counts", "average_free_energy", "well_centers",
+    "calculate_pair_correlation",
+    "set_icl_color_cycle", "get_icl_heatmap_cmap", "ICL_COLOR_CYCLE",
+    "mbar_free_energies", "mbar_log_weights", "mbar_expectation",
+    "pt_well_delta_f",
+    "effective_sample_size", "integrated_autocorr_time", "autocorrelation",
+    "sampling_efficiency",
+    "WELL_A", "WELL_B", "OUTSIDE", "STATE_LABELS",
+]

@@ -6,7 +6,7 @@ import sys
 import numpy as np
 import pytest
 
-from flowstate_tpu.analysis import (
+from flowstate.analysis import (
     OUTSIDE, WELL_A, WELL_B, average_free_energy, calculate_pair_correlation,
     calculate_well_statistics, classify_particles, state_histogram_counts,
 )
@@ -108,7 +108,7 @@ def test_rdf_parity_with_reference():
 
 
 def test_plots_write_artifacts(tmp_path):
-    from flowstate_tpu.analysis.plots import (
+    from flowstate.analysis.plots import (
         plot_acceptance_rate, plot_avg_free_energy, plot_loss,
         plot_pair_correlation, plot_potential, plot_state_histogram,
         plot_well_statistics,
@@ -132,7 +132,7 @@ def test_plots_write_artifacts(tmp_path):
 
 
 def test_effective_sample_size():
-    from flowstate_tpu.analysis import (
+    from flowstate.analysis import (
         effective_sample_size, integrated_autocorr_time,
     )
     rng = np.random.default_rng(0)
@@ -153,7 +153,7 @@ def test_effective_sample_size():
 
 
 def test_multichain_ess():
-    from flowstate_tpu.analysis.ess import multichain_ess
+    from flowstate.analysis.ess import multichain_ess
     rng = np.random.default_rng(1)
 
     # iid chains: ESS ~ total draw count
@@ -186,7 +186,7 @@ def test_multichain_ess():
 
 def test_icl_styling():
     import matplotlib
-    from flowstate_tpu.analysis import (
+    from flowstate.analysis import (
         ICL_COLOR_CYCLE, get_icl_heatmap_cmap, set_icl_color_cycle)
     set_icl_color_cycle()
     cycle = matplotlib.rcParams["axes.prop_cycle"].by_key()["color"]

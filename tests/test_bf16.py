@@ -1,7 +1,7 @@
 """bf16 compute-dtype path of the flow param nets (nets.py/_linear).
 
-The roofline work (ARCHITECTURE.md §2, VERDICT r2 items 2/4) runs the
-HBM-bound training step and big-move flow passes with bf16 matmuls.  These
+``compute_dtype='bfloat16'`` runs the training step and big-move flow
+passes with bf16 matmuls.  These
 tests pin the properties that make that safe:
 
 * MH exactness: the spline params the net emits DEFINE the proposal q, and
@@ -19,9 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowstate_tpu.flows import build_circular_flow
-from flowstate_tpu.training import TrainConfig, make_optimizer
-from flowstate_tpu.training.train import TrainState, make_train_step
+from flowstate.flows import build_circular_flow
+from flowstate.training import TrainConfig, make_optimizer
+from flowstate.training.train import TrainState, make_train_step
 
 HALF_BOX = 5.0
 

@@ -12,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowstate_tpu.flows import build_conditional_circular_flow
-from flowstate_tpu.mcmc import (
+from flowstate.flows import build_conditional_circular_flow
+from flowstate.mcmc import (
     block_context, blocked_big_moves, context_dim, init_chain_state,
     random_block_onehots, run_moves_batch, run_production_batch,
     scatter_block, select_particles,
 )
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.training import TrainConfig
-from flowstate_tpu.training.blocked import blocked_pairs, train_blocked
+from flowstate.ops import Box, SystemSpec
+from flowstate.training import TrainConfig
+from flowstate.training.blocked import blocked_pairs, train_blocked
 
 
 def _spec(n, rho=0.03):
@@ -215,7 +215,7 @@ def test_train_blocked_decreases_loss_and_helps_acceptance():
     hb = lx / 2
     c = 128
 
-    from flowstate_tpu.mcmc.initialise import init_alternating_wells
+    from flowstate.mcmc.initialise import init_alternating_wells
     pos, _ = init_alternating_wells(c, n, 0.03)
     state = init_chain_state(spec, jnp.asarray(pos), jax.random.key(16),
                              0.65)
@@ -253,7 +253,7 @@ def test_train_blocked_decreases_loss_and_helps_acceptance():
 
 def test_fourier_context_invariance():
     """The Fourier encoder is exactly permutation- and torus-invariant."""
-    from flowstate_tpu.mcmc import fourier_context, fourier_context_dim
+    from flowstate.mcmc import fourier_context, fourier_context_dim
 
     b, n, k, hb = 6, 8, 2, 5.0
     sel, rest = random_block_onehots(jax.random.key(21), b, n, k)

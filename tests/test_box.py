@@ -1,9 +1,9 @@
-"""Unit tests for the periodic box kernels (flowstate_tpu/ops/box.py)."""
+"""Unit tests for the periodic box kernels (flowstate/ops/box.py)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.ops import (
+from flowstate.ops import (
     Box, distance, distances_to_all, min_image, min_image_centered,
     pair_distance_matrix, upper_triangle_distances, wrap_pbc,
 )

@@ -10,13 +10,13 @@ import os
 import numpy as np
 import pytest
 
-from flowstate_tpu.utils.config import (
+from flowstate.utils.config import (
     algorithm1_config, algorithm2_config, mcmc_only_config,
 )
 
 
 def test_mcmc_only_smoke(tmp_path):
-    from flowstate_tpu.experiments import mcmc_only
+    from flowstate.experiments import mcmc_only
     config = mcmc_only_config(
         experiment_id="smoke", output_dir=str(tmp_path), num_chains=4,
         equilibration_steps=300, adjusting_frequency=100,
@@ -46,7 +46,7 @@ def test_mcmc_only_smoke(tmp_path):
 def test_mcmc_only_sampler_variants(tmp_path, sampler):
     """--sampler mala/hmc runs the same driver with the gradient kernels
     (beyond-reference; budget convention of SAMPLERS.md)."""
-    from flowstate_tpu.experiments import mcmc_only
+    from flowstate.experiments import mcmc_only
     config = mcmc_only_config(
         experiment_id=f"smoke_{sampler}", output_dir=str(tmp_path),
         num_chains=2, equilibration_steps=200, adjusting_frequency=100,
@@ -75,7 +75,7 @@ def test_mcmc_only_sampler_variants(tmp_path, sampler):
 
 
 def test_mcmc_only_unknown_sampler(tmp_path):
-    from flowstate_tpu.experiments import mcmc_only
+    from flowstate.experiments import mcmc_only
     config = mcmc_only_config(
         experiment_id="bad_sampler", output_dir=str(tmp_path), num_chains=2,
         equilibration_steps=100, adjusting_frequency=50,
@@ -85,7 +85,7 @@ def test_mcmc_only_unknown_sampler(tmp_path):
 
 
 def test_algorithm1_smoke(tmp_path):
-    from flowstate_tpu.experiments import algorithm1
+    from flowstate.experiments import algorithm1
     config = algorithm1_config(
         experiment_id="smoke_a1", output_dir=str(tmp_path), num_chains=4,
         equilibration_steps=200, adjusting_frequency=100,
@@ -109,7 +109,7 @@ def test_algorithm1_fused_testing_matches_host_loop(tmp_path):
     """The fused on-device testing scan consumes the PRNG streams in the
     same order as the host-driven loop, so for fixed seeds the two paths
     must produce the same acceptance history and free energy."""
-    from flowstate_tpu.experiments import algorithm1
+    from flowstate.experiments import algorithm1
 
     def go(fused, eid):
         config = algorithm1_config(
@@ -137,7 +137,7 @@ def test_algorithm1_fused_testing_matches_host_loop(tmp_path):
 
 
 def test_algorithm2_smoke(tmp_path):
-    from flowstate_tpu.experiments import algorithm2
+    from flowstate.experiments import algorithm2
     config = algorithm2_config(
         experiment_id="smoke_a2", output_dir=str(tmp_path), num_chains=4,
         equilibration_steps=200, adjusting_frequency=100,
@@ -165,7 +165,7 @@ def test_algorithm2_smoke(tmp_path):
 def test_algorithm2_fused_smoke(tmp_path):
     """The fused on-device cycle path (training/cycles.py) produces the
     same artifact set and sane statistics as the per-cycle host loop."""
-    from flowstate_tpu.experiments import algorithm2
+    from flowstate.experiments import algorithm2
     config = algorithm2_config(
         experiment_id="smoke_a2_fused", output_dir=str(tmp_path),
         num_chains=4, equilibration_steps=200, adjusting_frequency=100,
@@ -192,12 +192,12 @@ def test_algorithm2_freeze_after(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from flowstate_tpu.experiments.algorithm2 import run as run_a2
-    from flowstate_tpu.flows import build_circular_flow
-    from flowstate_tpu.mcmc import init_alternating_wells, init_chain_state
-    from flowstate_tpu.ops import Box, SystemSpec
-    from flowstate_tpu.training.cycles import make_fused_cycles
-    from flowstate_tpu.utils.config import algorithm2_config
+    from flowstate.experiments.algorithm2 import run as run_a2
+    from flowstate.flows import build_circular_flow
+    from flowstate.mcmc import init_alternating_wells, init_chain_state
+    from flowstate.ops import Box, SystemSpec
+    from flowstate.training.cycles import make_fused_cycles
+    from flowstate.utils.config import algorithm2_config
 
     # unit level: a frozen fused chunk returns params unchanged (bitwise)
     spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0),
@@ -234,9 +234,9 @@ def test_algorithm2_freeze_after(tmp_path):
 def test_fused_cycles_requires_static_regime():
     import pytest
 
-    from flowstate_tpu.flows import build_circular_flow
-    from flowstate_tpu.ops import Box, SystemSpec
-    from flowstate_tpu.training.cycles import make_fused_cycles
+    from flowstate.flows import build_circular_flow
+    from flowstate.ops import Box, SystemSpec
+    from flowstate.training.cycles import make_fused_cycles
     spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0))
     model = build_circular_flow(3, 2, 5.0, K=2, hidden_units=8, num_bins=4)
     cfg = algorithm2_config(cumulative_training_samples=True)
@@ -249,7 +249,7 @@ def test_fused_cycles_requires_static_regime():
 
 def test_algorithm2_resume(tmp_path):
     """Checkpoint-resume continues the cycle loop from the stored state."""
-    from flowstate_tpu.experiments import algorithm2
+    from flowstate.experiments import algorithm2
     config = algorithm2_config(
         experiment_id="resume_a2", output_dir=str(tmp_path), num_chains=4,
         equilibration_steps=100, adjusting_frequency=100,
@@ -278,8 +278,8 @@ def test_tempering_driver_smoke_and_resume(tmp_path):
     """PT production driver: segments, observables, MBAR ΔF, resume."""
     import json
 
-    from flowstate_tpu.experiments import tempering
-    from flowstate_tpu.utils.config import tempering_config
+    from flowstate.experiments import tempering
+    from flowstate.utils.config import tempering_config
 
     config = tempering_config(
         experiment_id="pt_smoke", output_dir=str(tmp_path), num_chains=8,
@@ -309,7 +309,7 @@ def test_tempering_driver_smoke_and_resume(tmp_path):
 def test_algorithm1_blocked_smoke(tmp_path):
     """A1 with blocked conditional proposals (blocked_k > 0): Phase C
     trains the conditional flow, Phase D runs block sweeps."""
-    from flowstate_tpu.experiments import algorithm1
+    from flowstate.experiments import algorithm1
 
     config = algorithm1_config(
         experiment_id="a1_blocked", output_dir=str(tmp_path), num_chains=8,
@@ -330,7 +330,7 @@ def test_algorithm1_blocked_smoke(tmp_path):
 
 def test_algorithm2_blocked_smoke(tmp_path):
     """A2 cycle loop with blocked conditional retraining (blocked_k)."""
-    from flowstate_tpu.experiments import algorithm2
+    from flowstate.experiments import algorithm2
 
     config = algorithm2_config(
         experiment_id="a2_blocked", output_dir=str(tmp_path), num_chains=8,
@@ -354,8 +354,8 @@ def test_algorithm2_blocked_smoke(tmp_path):
 
 
 def test_tempering_driver_validates_sampler(tmp_path):
-    from flowstate_tpu.experiments import tempering
-    from flowstate_tpu.utils.config import tempering_config
+    from flowstate.experiments import tempering
+    from flowstate.utils.config import tempering_config
 
     config = tempering_config(experiment_id="bad", output_dir=str(tmp_path),
                               sampler="metropolis")
@@ -366,7 +366,7 @@ def test_tempering_driver_validates_sampler(tmp_path):
 def test_algorithm1_premade_data(tmp_path):
     """A1 variant starting from saved NPZ data (reference's premade-data
     notebook, SURVEY.md §2.3)."""
-    from flowstate_tpu.experiments import algorithm1
+    from flowstate.experiments import algorithm1
     rng = np.random.default_rng(0)
     npz_path = str(tmp_path / "premade.npz")
     np.savez(npz_path,

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowstate_tpu.flows import (
+from flowstate.flows import (
     MADE, ActNorm, AffineConstFlow, AffineCouplingBlock, BatchNorm,
     CircularGaussianMixture, DiagGaussian, DiagGaussianProposal, HAIS,
     HamiltonianMonteCarlo, Invertible1x1Conv, InvertibleAffine,
@@ -291,7 +291,7 @@ def test_toy_targets_evaluate():
 
 
 def test_logit_transform_roundtrip_and_logdet():
-    from flowstate_tpu.flows import LogitTransform, Shift
+    from flowstate.flows import LogitTransform, Shift
     layer = LogitTransform(alpha=0.05)
     z = jax.random.normal(jax.random.key(50), (16, 4))
     x, ld = layer.forward({}, z)
@@ -311,7 +311,7 @@ def test_logit_transform_roundtrip_and_logdet():
 
 
 def test_autoregressive_rqs_wrapper_roundtrip():
-    from flowstate_tpu.flows import AutoregressiveRationalQuadraticSpline
+    from flowstate.flows import AutoregressiveRationalQuadraticSpline
     layer = AutoregressiveRationalQuadraticSpline(
         num_input_channels=D, num_blocks=2, num_hidden_channels=16,
         num_bins=4, tail_bound=3.0, init_identity=False)
@@ -320,7 +320,7 @@ def test_autoregressive_rqs_wrapper_roundtrip():
 
 
 def test_circular_autoregressive_rqs_wrapper_roundtrip():
-    from flowstate_tpu.flows import (
+    from flowstate.flows import (
         CircularAutoregressiveRationalQuadraticSpline)
     # mixed tails: dims 0, 2, 4 circular, rest linear (wrapper.py:377-379)
     layer = CircularAutoregressiveRationalQuadraticSpline(
@@ -332,7 +332,7 @@ def test_circular_autoregressive_rqs_wrapper_roundtrip():
 
 
 def test_autoregressive_rqs_wrapper_identity_init():
-    from flowstate_tpu.flows import AutoregressiveRationalQuadraticSpline
+    from flowstate.flows import AutoregressiveRationalQuadraticSpline
     layer = AutoregressiveRationalQuadraticSpline(
         num_input_channels=D, num_blocks=2, num_hidden_channels=16,
         num_bins=4, tail_bound=3.0, init_identity=True)
@@ -344,7 +344,7 @@ def test_autoregressive_rqs_wrapper_identity_init():
 
 
 def test_image_prior_lookup_and_sampling():
-    from flowstate_tpu.flows import ImagePrior
+    from flowstate.flows import ImagePrior
     img = np.zeros((8, 8))
     img[0:4, 4:8] = 1.0  # bright top-right quadrant (rows = y from top)
     prior = ImagePrior(img, x_range=(-1.0, 1.0), y_range=(-1.0, 1.0))
@@ -362,7 +362,7 @@ def test_image_prior_lookup_and_sampling():
 
 
 def test_small_nn_utilities():
-    from flowstate_tpu.flows import ClampExp, ConstScaleLayer, clamp_exp
+    from flowstate.flows import ClampExp, ConstScaleLayer, clamp_exp
     x = jnp.asarray([-2.0, 0.0, 3.0])
     np.testing.assert_allclose(
         np.asarray(clamp_exp(x)), [np.exp(-2.0), 1.0, 1.0], rtol=1e-6)
@@ -372,7 +372,7 @@ def test_small_nn_utilities():
 
 
 def test_distances_from_vectors_matches_compute_distances():
-    from flowstate_tpu.flows.utils import (
+    from flowstate.flows.utils import (
         compute_distances, distances_from_vectors)
     x = _rand(67, (8, 3 * 2))
     conf = x.reshape(8, 3, 2)

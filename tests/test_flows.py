@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowstate_tpu.flows import (
+from flowstate.flows import (
     CircularSplineCoupling, CoupledRationalQuadraticSpline, DoubleWellLJ,
     NormalizingFlow, UniformParticle, build_circular_flow,
 )
@@ -223,7 +223,7 @@ def test_forward_kld_base_term_flag():
 def test_uniform_gaussian_fork_semantics():
     """base.py:245-275 fork quirk: sample() draws uniform noise for BOTH
     groups, log_prob returns only the uniform part."""
-    from flowstate_tpu.flows import UniformGaussian
+    from flowstate.flows import UniformGaussian
     d = 4
     fork = UniformGaussian(dim=d, ind_uniform=(0, 1), scale=(2.0,) * d)
     s = fork.sample(jax.random.key(0), 2000)
@@ -242,7 +242,7 @@ def test_uniform_gaussian_fork_semantics():
 
 def test_scanned_layers_equal_unrolled():
     """scan-over-layers flow == unrolled flow on identical stacked params."""
-    from flowstate_tpu.flows.core import ScannedLayers
+    from flowstate.flows.core import ScannedLayers
     layer = _layer()
     K = 4
     scanned = ScannedLayers(layer, K)

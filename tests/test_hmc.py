@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.mcmc import (
+from flowstate.mcmc import (
     init_chain_state, resync_energy, run_hmc_batch,
     run_hmc_equilibration_batch,
 )
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.ops.potentials import double_well_potential
+from flowstate.ops import Box, SystemSpec
+from flowstate.ops.potentials import double_well_potential
 
 
 def _spec_n1():

@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.flows import build_circular_flow
-from flowstate_tpu.mcmc import (
+from flowstate.flows import build_circular_flow
+from flowstate.mcmc import (
     bulk_judge_flow, init_chain_state, judge_flow, nf_big_moves,
 )
-from flowstate_tpu.mcmc.hybrid import to_box_frame, to_centered
-from flowstate_tpu.ops import Box, SystemSpec, total_energy_virial
+from flowstate.mcmc.hybrid import to_box_frame, to_centered
+from flowstate.ops import Box, SystemSpec, total_energy_virial
 
 
 def _spec(n=3, rho=0.03):

@@ -15,8 +15,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.mcmc import apply_big_moves, init_chain_state
-from flowstate_tpu.ops import Box, SystemSpec, double_well_potential
+from flowstate.mcmc import apply_big_moves, init_chain_state
+from flowstate.ops import Box, SystemSpec, double_well_potential
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +124,8 @@ def test_global_paired_lockstep_matches_separate_passes():
     scan behind nf_big_moves) must agree with the separate forward +
     inverse sweeps, and nf_big_moves(paired=True/False) must make the
     same decisions."""
-    from flowstate_tpu.flows import build_circular_flow
-    from flowstate_tpu.mcmc import nf_big_moves
+    from flowstate.flows import build_circular_flow
+    from flowstate.mcmc import nf_big_moves
 
     n, hb = 3, 5.0
     model = build_circular_flow(n, 2, hb, K=4, hidden_units=16,

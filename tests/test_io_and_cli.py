@@ -7,7 +7,7 @@ import sys
 import numpy as np
 import pytest
 
-from flowstate_tpu.io.aggregate import (
+from flowstate.io.aggregate import (
     _load_native, append_results, append_row_locked,
 )
 
@@ -27,7 +27,7 @@ def test_aggregator_concurrent_processes(tmp_path):
     path = str(tmp_path / "shared.csv")
     script = (
         "import sys; sys.path.insert(0, %r); "
-        "from flowstate_tpu.io.aggregate import append_row_locked; "
+        "from flowstate.io.aggregate import append_row_locked; "
         "[append_row_locked(%r, f'{%d},{i}', header='proc,i') "
         "for i in range(50)]")
     procs = [
@@ -47,7 +47,7 @@ def test_aggregator_concurrent_processes(tmp_path):
 
 
 def test_single_run_cli(tmp_path):
-    from flowstate_tpu.experiments import single_run
+    from flowstate.experiments import single_run
     summary = single_run.main([
         "--temperature", "1.0", "--num_particles", "3",
         "--initial_rho", "0.03", "--equilibration_steps", "300",
@@ -69,7 +69,7 @@ def test_single_run_cli(tmp_path):
 
 
 def test_sweep_runner(tmp_path):
-    from flowstate_tpu.experiments.sweep import SweepParams, run_experiments
+    from flowstate.experiments.sweep import SweepParams, run_experiments
     params = SweepParams(
         output_path=str(tmp_path), experiment_id="sw",
         density_start=0.03, density_end=0.04, density_intervals=2,
@@ -84,7 +84,7 @@ def test_sweep_runner(tmp_path):
 
 
 def test_npz_trainer(tmp_path):
-    from flowstate_tpu.experiments import train_npz
+    from flowstate.experiments import train_npz
     rng = np.random.default_rng(0)
     configs = rng.uniform(-5, 5, size=(300, 3, 2)).astype(np.float32)
     npz_path = str(tmp_path / "data.npz")

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowstate_tpu.flows import (
+from flowstate.flows import (
     InducedNormCNN, InducedNormConv2d, InducedNormLinear, InducedNormMLP,
     asym_squash,
 )
@@ -158,7 +158,7 @@ def test_induced_norm_mlp_is_contractive_and_trains():
 
 
 def test_induced_norm_mlp_as_residual_net():
-    from flowstate_tpu.flows import Residual
+    from flowstate.flows import Residual
 
     net = InducedNormMLP((2, 16, 2), coeff=0.9)
     block = Residual(net=net, reverse=False, estimator="exact", dim=2)

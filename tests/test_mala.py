@@ -10,13 +10,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.mcmc import (
+from flowstate.mcmc import (
     adjust_tau, init_chain_state, potential_gradient, run_mala,
     run_mala_batch, run_mala_equilibration_batch, resync_energy,
 )
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.ops.pair_energy import total_energy_virial
-from flowstate_tpu.ops.potentials import double_well_potential
+from flowstate.ops import Box, SystemSpec
+from flowstate.ops.pair_energy import total_energy_virial
+from flowstate.ops.potentials import double_well_potential
 
 
 def _spec_n1():

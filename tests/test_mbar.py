@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.analysis.mbar import (
+from flowstate.analysis.mbar import (
     mbar_expectation, mbar_free_energies, mbar_log_weights, pt_well_delta_f,
 )
-from flowstate_tpu.mcmc import (
+from flowstate.mcmc import (
     init_tempered_state, run_replica_exchange, temperature_ladder,
 )
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.ops.potentials import double_well_potential
+from flowstate.ops import Box, SystemSpec
+from flowstate.ops.potentials import double_well_potential
 
 
 def _gaussian_ladder(sigmas, m, seed=0):

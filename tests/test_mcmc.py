@@ -10,19 +10,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.mcmc import (
+from flowstate.mcmc import (
     ChainState, adjust_displacement, init_alternating_wells, init_chain_state,
     initialise_fcc, initialise_low_left, initialise_low_right, resync_energy,
     run_equilibration_batch, run_moves_batch, run_production_batch,
 )
-from flowstate_tpu.ops import Box, SystemSpec, double_well_potential
-
-
-def _spec_n1():
-    """Single particle in the asymmetric double well (no LJ partner)."""
-    box = Box.from_density(1, 0.01, 1.0)  # 10x10 box
-    return SystemSpec.create(1, box, num_wells=2, V0_list=(-2.0, -2.5),
-                             r0=1.2, k=15.0)
+from flowstate.ops import Box, SystemSpec
+from helpers.oracles import (
+    exact_well_delta_f, sampled_well_delta_f, single_particle_spec,
+    split_start,
+)
 
 
 def _spec_n3():
@@ -40,7 +37,7 @@ def test_initialisers():
     pf, boxf = initialise_fcc(48, 0.5, 1.5)
     assert pf.shape == (48, 2)
     # lattice spacing must exceed the hard core
-    from flowstate_tpu.ops import pair_distance_matrix
+    from flowstate.ops import pair_distance_matrix
     dm = np.array(pair_distance_matrix(jnp.asarray(pf), boxf))
     np.fill_diagonal(dm, 10.0)
     assert dm.min() > 0.5
@@ -76,7 +73,7 @@ def test_energy_bookkeeping_consistency():
 def test_batched_energy_chunking_matches_vmap():
     """batched_energy_virial's lax.map chunking (the large-C*N^2 OOM
     guard) must reproduce the full vmap exactly."""
-    from flowstate_tpu.mcmc.state import batched_energy_virial
+    from flowstate.mcmc.state import batched_energy_virial
 
     spec = _spec_n3()
     pos, _ = init_alternating_wells(11, 3, 0.03)
@@ -99,7 +96,7 @@ def test_hard_core_never_violated():
     state = init_chain_state(spec, jnp.asarray(pos), jax.random.key(2), 0.65)
     state, obs = run_production_batch(spec, 1.0, state, 20, 50)
     configs = np.asarray(obs.positions).reshape(-1, 3, 2)  # (C*T, N, 2)
-    from flowstate_tpu.ops import pair_distance_matrix
+    from flowstate.ops import pair_distance_matrix
     for cfg in configs[:50]:
         dm = np.array(pair_distance_matrix(jnp.asarray(cfg), spec.box))
         np.fill_diagonal(dm, 10.0)
@@ -141,37 +138,16 @@ def test_single_particle_boltzmann_free_energy():
     (hybrid_NF_MCMC/utils.py:61-101) validated against the analytically
     integrable N=1 system.
     """
-    spec = _spec_n1()
+    spec = single_particle_spec()
     beta = 1.0
-    lx, ly = spec.box.size_x, spec.box.size_y
-
-    # exact via quadrature of exp(-beta V) over well disks (r <= 1.1*r0)
-    g = 400
-    xs = np.linspace(0, lx, g, endpoint=False) + lx / g / 2
-    ys = np.linspace(0, ly, g, endpoint=False) + ly / g / 2
-    xx, yy = np.meshgrid(xs, ys, indexing="ij")
-    pts = jnp.asarray(np.stack([xx.ravel(), yy.ravel()], axis=-1))
-    V = np.asarray(double_well_potential(pts, lx, ly,
-                                         V0_list=list(spec.V0_list),
-                                         r0=spec.r0, k=spec.k)).reshape(g, g)
-    w = np.exp(-beta * V)
-    radius = 1.1 * spec.r0
-    dA = np.hypot(xx - lx / 4, yy - ly / 2) <= radius
-    dB = np.hypot(xx - 3 * lx / 4, yy - ly / 2) <= radius
-    exact_dF = np.log(w[dB].sum() / w[dA].sum())
+    exact_dF = exact_well_delta_f(spec, beta)
 
     # sample: 256 chains x 600 samples at stride 5
-    c = 256
-    pos0 = np.tile(np.array([[lx / 4, ly / 2]]), (c, 1, 1))
-    pos0[c // 2:, :, 0] = 3 * lx / 4  # half start right
-    state = init_chain_state(spec, jnp.asarray(pos0), jax.random.key(7), 1.5)
+    state = init_chain_state(spec, jnp.asarray(split_start(spec, 256)),
+                             jax.random.key(7), 1.5)
     state = run_moves_batch(spec, beta, state, 300)  # equilibrate
     state, obs = run_production_batch(spec, beta, state, 600, 5)
-    xy = np.asarray(obs.positions).reshape(-1, 2)
-
-    in_A = np.hypot(*(xy - [lx / 4, ly / 2]).T) <= radius
-    in_B = np.hypot(*(xy - [3 * lx / 4, ly / 2]).T) <= radius
-    sampled_dF = np.log(in_B.sum() / in_A.sum())
+    sampled_dF = sampled_well_delta_f(spec, obs.positions)
 
     # MC error at ~1.5e5 correlated samples: allow a generous band
     assert abs(sampled_dF - exact_dF) < 0.12, (sampled_dF, exact_dF)

@@ -1,7 +1,7 @@
 """Two-process ``jax.distributed`` test (VERDICT r1 item 5).
 
 The reference has no multi-host story at all (SURVEY.md §2.5: subprocess
-fan-out + file locks); the TPU build's multi-host path is
+fan-out + file locks); this build's multi-host path is
 ``parallel/mesh.py:initialize_distributed`` + global-mesh collectives.
 This test actually EXECUTES that path: two OS processes, a localhost
 coordinator, 2 virtual CPU devices per process (4 global), a cross-process

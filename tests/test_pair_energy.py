@@ -3,8 +3,10 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from flowstate_tpu.ops import (
+from flowstate.mcmc import initialise_fcc
+from flowstate.ops import (
     Box, SystemSpec, particle_energy_virial, pressure, total_energy_virial,
 )
 
@@ -57,6 +59,31 @@ def test_total_energy_matches_brute_force(rng):
         else:
             np.testing.assert_allclose(float(e), e_ref, rtol=1e-4, atol=1e-4)
             np.testing.assert_allclose(float(w), w_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [3, 100, 300])
+def test_total_energy_matches_brute_force_dense(rng, n):
+    """Dense lattice systems up to N=300 (many pairs inside the cutoff)."""
+    pos, box = initialise_fcc(n, 0.3, 1.0)
+    spec = SystemSpec.create(n, box, num_wells=2, V0_list=(-10.0, -10.5),
+                             r0=1.2, k=15.0)
+    # jitter the lattice; the spacing keeps particles out of the hard core
+    pos = pos + rng.uniform(-0.05, 0.05, size=pos.shape)
+    e_ref, w_ref = _brute_force_energy(np.array(pos, np.float64), box, spec)
+    e, w = total_energy_virial(spec, jnp.asarray(pos, jnp.float32))
+    np.testing.assert_allclose(float(e), e_ref, rtol=2e-4, atol=1e-2)
+    np.testing.assert_allclose(float(w), w_ref, rtol=2e-4, atol=1e-2)
+
+
+def test_hard_core_gives_inf_many_particles(rng):
+    box = Box.from_density(10, 0.3, 1.0)
+    spec = SystemSpec.create(10, box, num_wells=2, V0_list=(-10.0, -10.5),
+                             r0=1.2, k=15.0)
+    pos = rng.uniform(1, 5, size=(10, 2))
+    pos[1] = pos[0] + 0.1  # overlap
+    assert np.isinf(_brute_force_energy(pos.copy(), box, spec)[0])
+    e, w = total_energy_virial(spec, jnp.asarray(pos))
+    assert np.isinf(float(e)) and np.isinf(float(w))
 
 
 def test_hard_core_gives_inf():

@@ -1,27 +1,108 @@
-"""Pallas move-kernel tests (TPU interpreter).
+"""Triton Metropolis move-kernel tests.
 
-The TPU interpreter's on-chip PRNG returns all-zero bits, so interpret-mode
-can only validate the deterministic bookkeeping: with zero random bits every
-move picks particle 0, displaces by (-0.5, -0.5)*max_disp, and accepts iff
-dE <= 0 (u = 0).  Statistics (acceptance ~0.5, well occupancies, energy
-drift < 3e-4 over 67M moves) are validated on real TPU hardware — numbers
-recorded in the module docstring.
+On the CPU the kernel runs in Pallas interpret mode, where its counter-based
+generator draws the same numbers as on the card, so the statistics are
+tested here: the generator itself, the bookkeeping, agreement with the
+plain engine, and the exact-quadrature oracle.  Tests marked ``gpu`` run the
+kernel as compiled for the card; they skip elsewhere and are run by phase d
+of ``chip_smoke.py``.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+from jax.extend.random import threefry_2x32
+from scipy import stats
 
-from flowstate_tpu.mcmc import init_alternating_wells, init_chain_state, resync_energy
-from flowstate_tpu.mcmc.pallas_metropolis import C_BLK, run_moves_pallas
-from flowstate_tpu.ops import Box, SystemSpec
+import flowstate.mcmc.pallas_metropolis as pm
+from flowstate.mcmc import (
+    init_alternating_wells, init_chain_state, resync_energy, run_moves_batch,
+)
+from flowstate.mcmc.pallas_metropolis import (
+    BLOCK_C, MAX_PARTICLES, move_randoms, run_moves_auto, run_moves_pallas,
+    threefry2x32,
+)
+from flowstate.ops import Box, SystemSpec
+from helpers.oracles import (
+    exact_well_delta_f, sampled_well_delta_f, single_particle_spec,
+    split_start,
+)
+
+
+def _spec_n3():
+    return SystemSpec.create(3, Box.from_density(3, 0.03, 1.0), num_wells=2,
+                             V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
+
+
+def _state_n3(chains, seed=0):
+    spec = _spec_n3()
+    pos, _ = init_alternating_wells(chains, 3, 0.03)
+    return spec, init_chain_state(spec, jnp.asarray(pos),
+                                  jax.random.key(seed), 0.65)
+
+
+def _interpret(monkeypatch):
+    """Route the kernel's callers through interpret mode."""
+    monkeypatch.setattr(pm, "run_moves_pallas", functools.partial(
+        run_moves_pallas, interpret=True))
+
+
+def _require_gpu():
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU: the compiled Triton kernel has no CPU "
+                    "path (chip_smoke.py runs this test on the card)")
+
+
+@pytest.mark.parametrize("prop", ["matches_jax_threefry", "uniform",
+                                  "distinct_streams", "deterministic"])
+def test_counter_generator(prop):
+    """The in-kernel Threefry-2x32 generator."""
+    k0, k1 = jnp.uint32(0x12345678), jnp.uint32(0x9ABCDEF0)
+    chains = jnp.arange(4096, dtype=jnp.uint32)
+    if prop == "matches_jax_threefry":
+        ctr = jnp.arange(64, dtype=jnp.uint32)
+        a, b = threefry2x32(k0, k1, ctr, ctr + 1000)
+        ref = threefry_2x32(jnp.stack([k0, k1]),
+                            jnp.concatenate([ctr, ctr + 1000]))
+        np.testing.assert_array_equal(np.concatenate([a, b]), ref)
+    elif prop == "uniform":
+        _, u1, u2, ua = move_randoms(k0, k1, chains, jnp.int32(3))
+        for u in (u1, u2, ua):
+            u = np.asarray(u, np.float64)
+            assert np.all((u >= 0) & (u < 1))
+            assert abs(u.mean() - 0.5) < 4 * np.sqrt(1 / 12 / u.size)
+            assert abs(u.var() - 1 / 12) < 0.01
+            assert stats.kstest(u, "uniform").pvalue > 1e-3
+        # the three uniforms of one move are uncorrelated
+        corr = np.corrcoef(np.stack([u1, u2, ua]))[np.triu_indices(3, 1)]
+        assert np.abs(corr).max() < 0.06
+    elif prop == "distinct_streams":
+        w_move0 = np.asarray(move_randoms(k0, k1, chains, jnp.int32(0))[0])
+        w_move1 = np.asarray(move_randoms(k0, k1, chains, jnp.int32(1))[0])
+        w_key2 = np.asarray(move_randoms(k0 + jnp.uint32(1), k1, chains,
+                                         jnp.int32(0))[0])
+        assert len(np.unique(w_move0)) == chains.size      # across chains
+        assert np.mean(w_move0 == w_move1) < 1e-2          # across moves
+        assert np.mean(w_move0 == w_key2) < 1e-2           # across calls
+        # successive calls on an advancing state draw fresh keys
+        spec, state = _state_n3(8)
+        out = run_moves_pallas(spec, 1.0, state, 4, interpret=True)
+        assert not np.array_equal(pm.kernel_key(state), pm.kernel_key(out))
+    else:
+        spec, state = _state_n3(40)
+        a = run_moves_pallas(spec, 1.0, state, 30, seed=11, interpret=True)
+        b = run_moves_pallas(spec, 1.0, state, 30, seed=11, interpret=True)
+        c = run_moves_pallas(spec, 1.0, state, 30, seed=12, interpret=True)
+        np.testing.assert_array_equal(a.positions, b.positions)
+        np.testing.assert_array_equal(a.accepts, b.accepts)
+        assert not np.array_equal(a.positions, c.positions)
 
 
 def test_interpret_bookkeeping_consistent():
-    spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0), num_wells=2,
-                             V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
-    pos, _ = init_alternating_wells(C_BLK, 3, 0.03)
-    state = init_chain_state(spec, jnp.asarray(pos), jax.random.key(0), 0.65)
+    spec, state = _state_n3(BLOCK_C)
     out = run_moves_pallas(spec, 1.0, state, 100, seed=3, interpret=True)
     # positions stay in the box
     assert np.all(np.asarray(out.positions) >= 0)
@@ -30,21 +111,21 @@ def test_interpret_bookkeeping_consistent():
     res = resync_energy(spec, out)
     np.testing.assert_allclose(np.asarray(out.energy),
                                np.asarray(res.energy), atol=1e-3)
-    # counters advanced
+    # counters advanced, and some but not all moves were accepted
     assert np.all(np.asarray(out.attempts) - np.asarray(state.attempts)
                   == 100)
-    # particles 1,2 never moved (zero-bit RNG always picks particle 0)
-    np.testing.assert_allclose(np.asarray(out.positions[:, 1:]),
-                               np.asarray(state.positions[:, 1:]), atol=1e-6)
+    acc = np.asarray(out.accepts) - np.asarray(state.accepts)
+    assert np.all((acc > 0) & (acc < 100))
+    # every particle moved in some chain
+    moved = np.any(np.asarray(out.positions) != np.asarray(state.positions),
+                   axis=(0, 2))
+    assert np.all(moved)
 
 
 def test_virial_is_poisoned_until_resync():
     """The kernel does not track the virial; the returned field must be
     NaN (visibly wrong, not silently stale) until resync_energy."""
-    spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0), num_wells=2,
-                             V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
-    pos, _ = init_alternating_wells(C_BLK, 3, 0.03)
-    state = init_chain_state(spec, jnp.asarray(pos), jax.random.key(0), 0.65)
+    spec, state = _state_n3(BLOCK_C)
     out = run_moves_pallas(spec, 1.0, state, 10, seed=1, interpret=True)
     assert np.all(np.isnan(np.asarray(out.virial)))
     res = resync_energy(spec, out)
@@ -52,26 +133,28 @@ def test_virial_is_poisoned_until_resync():
 
 
 def test_auto_padding_of_chain_axis():
-    """Chain counts that are not C_BLK multiples are padded and sliced
-    back; results for the real chains must be identical to a padded run."""
-    spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0), num_wells=2,
-                             V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
-    c = 100  # << C_BLK and not a multiple
-    pos, _ = init_alternating_wells(c, 3, 0.03)
-    state = init_chain_state(spec, jnp.asarray(pos), jax.random.key(0), 0.65)
-    out = run_moves_pallas(spec, 1.0, state, 50, seed=7, interpret=True)
+    """Chain counts that are not BLOCK_C multiples are padded by replicating
+    the last chain and sliced back.  Each chain's stream is keyed by its
+    index, so the real chains match a run over an unpadded batch exactly."""
+    spec, state = _state_n3(2 * BLOCK_C)
+    c = BLOCK_C + 5
+    part = jax.tree_util.tree_map(lambda x: x[:c], state)
+    out = run_moves_pallas(spec, 1.0, part, 50, seed=7, interpret=True)
+    full = run_moves_pallas(spec, 1.0, state, 50, seed=7, interpret=True)
     assert out.positions.shape == (c, 3, 2)
     assert out.energy.shape == (c,)
+    np.testing.assert_array_equal(out.positions, full.positions[:c])
+    np.testing.assert_array_equal(out.accepts, full.accepts[:c])
     res = resync_energy(spec, out)
     np.testing.assert_allclose(np.asarray(out.energy),
                                np.asarray(res.energy), atol=1e-3)
-    assert np.all(np.asarray(out.attempts) - np.asarray(state.attempts)
+    assert np.all(np.asarray(out.attempts) - np.asarray(part.attempts)
                   == 50)
 
 
 def test_multi_sublane_particle_tiles():
-    """N > 8 uses multi-row tiles; bookkeeping must stay exact (N=12 ->
-    rows=16)."""
+    """N=12 pads the particle tile to 16 rows; the bookkeeping stays exact
+    and the padded rows never act as particles."""
     n = 12
     spec = SystemSpec.create(n, Box.from_density(n, 0.03, 1.0), num_wells=2,
                              V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
@@ -86,48 +169,13 @@ def test_multi_sublane_particle_tiles():
     np.testing.assert_allclose(np.asarray(out.energy),
                                np.asarray(res.energy),
                                rtol=1e-5, atol=1e-3)
-    # zero-bit interpreter RNG: only particle 0 ever moves
-    np.testing.assert_allclose(np.asarray(out.positions[:, 1:]),
-                               np.asarray(state.positions[:, 1:]), atol=1e-6)
 
 
-def test_large_n_shrinks_chain_block():
-    """Large N picks a smaller lanes block (VMEM budget) and keeps the
-    bookkeeping exact; N=72 -> rows=72, and a chain count below the small-N
-    block still pads and round-trips correctly."""
-    from flowstate_tpu.mcmc.initialise import initialise_fcc
-    from flowstate_tpu.mcmc.pallas_metropolis import _pick_c_blk
-
-    assert _pick_c_blk(8) == 512
-    assert _pick_c_blk(32) == 512
-    assert _pick_c_blk(64) == 128
-    assert _pick_c_blk(1024) == 128
-
-    n = 72
-    pos, box = initialise_fcc(n, 0.3, 1.0)
-    spec = SystemSpec.create(n, box, num_wells=0)
-    state = init_chain_state(
-        spec, jnp.broadcast_to(jnp.asarray(pos), (3, n, 2)),
-        jax.random.key(0), 0.3)
-    out = run_moves_pallas(spec, 1.0, state, 16, seed=7, interpret=True)
-    assert out.positions.shape == (3, n, 2)
-    res = resync_energy(spec, out)
-    np.testing.assert_allclose(np.asarray(out.energy),
-                               np.asarray(res.energy),
-                               rtol=1e-5, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(out.positions[:, 1:]),
-                               np.asarray(state.positions[:, 1:]), atol=1e-6)
-
-
-def test_too_many_particles_raises_and_auto_dispatches():
-    import pytest
-
-    from flowstate_tpu.mcmc.pallas_metropolis import (
-        MAX_PARTICLES, run_moves_auto,
-    )
+def test_too_many_particles_raises_and_auto_dispatches(monkeypatch):
+    """run_moves_auto: the kernel up to MAX_PARTICLES, the plain engine
+    above it; run_moves_pallas refuses N > MAX_PARTICLES."""
     n = MAX_PARTICLES + 1
     spec = SystemSpec.create(n, Box.from_density(n, 0.03, 1.0), num_wells=0)
-    # simple square lattice (the well-grid initialisers cap at 12/well)
     box = float(spec.box.size_x)
     side = int(np.ceil(np.sqrt(n)))
     xy = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
@@ -137,31 +185,29 @@ def test_too_many_particles_raises_and_auto_dispatches():
                              jax.random.key(0), 0.65)
     with pytest.raises(ValueError, match="up to"):
         run_moves_pallas(spec, 1.0, state, 5, interpret=True)
-    # the dispatcher falls back to the XLA engine (CPU backend here)
     out = run_moves_auto(spec, 1.0, state, 5)
     assert out.positions.shape == (4, n, 2)
     assert np.all(np.asarray(out.attempts) - np.asarray(state.attempts) == 5)
+    assert np.all(np.isfinite(np.asarray(out.virial)))   # plain engine
+
+    calls = []
+    monkeypatch.setattr(pm, "run_moves_pallas",
+                        lambda *a, **k: calls.append(a[0].num_particles))
+    spec3, state3 = _state_n3(4)
+    run_moves_auto(spec3, 1.0, state3, 5)
+    assert calls == [3]
 
 
-def test_production_pallas_shapes_and_observables():
+def test_production_pallas_shapes_and_observables(monkeypatch):
     """run_production_pallas matches run_production_batch's observable
     layout and records exact (resynced) energies/virials."""
-    from flowstate_tpu.mcmc import run_production_pallas
+    from flowstate.mcmc import run_production_pallas
+    from flowstate.ops import total_energy_virial
 
-    spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0), num_wells=2,
-                             V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
     c, t = 64, 5
-    pos, _ = init_alternating_wells(c, 3, 0.03)
-    state = init_chain_state(spec, jnp.asarray(pos), jax.random.key(0), 0.65)
-    import functools
-
-    import flowstate_tpu.mcmc.pallas_metropolis as pm
-    orig = pm.run_moves_pallas
-    pm.run_moves_pallas = functools.partial(orig, interpret=True)
-    try:
-        out, obs = run_production_pallas(spec, 1.0, state, t, 10)
-    finally:
-        pm.run_moves_pallas = orig
+    spec, state = _state_n3(c)
+    _interpret(monkeypatch)
+    out, obs = run_production_pallas(spec, 1.0, state, t, 10)
     assert obs.positions.shape == (c, t, 3, 2)
     assert obs.energy_per_particle.shape == (c, t)
     assert obs.cycle.shape == (c, t)
@@ -171,107 +217,71 @@ def test_production_pallas_shapes_and_observables():
     assert np.all(np.isfinite(np.asarray(obs.pressure)))
     assert np.all(np.isfinite(np.asarray(out.virial)))
     # recorded energy is the exact recompute of the recorded positions
-    from flowstate_tpu.ops import total_energy_virial
     e_last, _ = jax.vmap(lambda p: total_energy_virial(spec, p))(
         obs.positions[:, -1])
     np.testing.assert_allclose(np.asarray(obs.energy_per_particle[:, -1]),
                                np.asarray(e_last) / 3, rtol=1e-6)
 
 
-def test_fast_math_matches_exact_bookkeeping():
-    """fast_math=True (rsqrt-based 1/r2, shared 'others' mask) must keep
-    the cached energy consistent with a full recompute and, with the
-    interpreter's deterministic zero-bit RNG, produce the SAME trajectory
-    as the exact-divide kernel to fp32 noise."""
-    spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0), num_wells=2,
-                             V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
-    pos, _ = init_alternating_wells(64, 3, 0.03)
-    state = init_chain_state(spec, jnp.asarray(pos), jax.random.key(0), 0.65)
-    exact = run_moves_pallas(spec, 1.0, state, 100, seed=3, interpret=True)
-    fast = run_moves_pallas(spec, 1.0, state, 100, seed=3, interpret=True,
-                            fast_math=True)
-    np.testing.assert_allclose(np.asarray(fast.positions),
-                               np.asarray(exact.positions), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(fast.energy),
-                               np.asarray(exact.energy),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(fast.accepts),
-                                  np.asarray(exact.accepts))
-    # cached energy equals a full recompute
-    res = resync_energy(spec, fast)
-    np.testing.assert_allclose(np.asarray(fast.energy),
-                               np.asarray(res.energy), atol=1e-3)
+def test_kernel_matches_exact_quadrature(monkeypatch):
+    """The kernel's samples reproduce the exact single-particle well ΔF
+    (the same oracle and band as the plain engine's test in test_mcmc)."""
+    from flowstate.mcmc import run_production_pallas
+
+    spec = single_particle_spec()
+    state = init_chain_state(spec, jnp.asarray(split_start(spec, 256)),
+                             jax.random.key(7), 1.5)
+    state = run_moves_pallas(spec, 1.0, state, 300, interpret=True)
+    _interpret(monkeypatch)
+    _, obs = run_production_pallas(spec, 1.0, state, 600, 5)
+    sampled = sampled_well_delta_f(spec, obs.positions)
+    exact = exact_well_delta_f(spec, 1.0)
+    assert abs(sampled - exact) < 0.12, (sampled, exact)
 
 
-def test_fast_math_large_n():
-    """fast_math at a multi-row particle tile (N=72, rows=72)."""
-    from flowstate_tpu.mcmc.initialise import initialise_fcc
+def _compare_with_plain_engine(chains, moves, interpret, n=3):
+    """Kernel vs plain engine from one start: acceptance within 0.02, mean
+    energy per particle within 3 standard errors over chains."""
+    if n == 3:
+        spec, state = _state_n3(chains)
+    else:
+        from flowstate.mcmc.initialise import init_split_wells
 
-    n = 72
-    pos, box = initialise_fcc(n, 0.3, 1.0)
-    spec = SystemSpec.create(n, box, num_wells=0)
-    state = init_chain_state(
-        spec, jnp.broadcast_to(jnp.asarray(pos), (3, n, 2)),
-        jax.random.key(0), 0.3)
-    out = run_moves_pallas(spec, 1.0, state, 16, seed=7, interpret=True,
-                           fast_math=True)
-    res = resync_energy(spec, out)
+        spec = SystemSpec.create(n, Box.from_density(n, 0.03, 1.0),
+                                 num_wells=2, V0_list=(-10.0, -10.5),
+                                 r0=1.2, k=15.0)
+        pos, _ = init_split_wells(chains, n, 0.03)
+        state = init_chain_state(spec, jnp.asarray(pos), jax.random.key(0),
+                                 0.65)
+    out = run_moves_pallas(spec, 1.0, state, moves, seed=2,
+                           interpret=interpret)
+    kern = resync_energy(spec, out)
     np.testing.assert_allclose(np.asarray(out.energy),
-                               np.asarray(res.energy),
-                               rtol=1e-5, atol=1e-3)
+                               np.asarray(kern.energy), rtol=1e-4,
+                               atol=1e-3)
+    plain = run_moves_batch(spec, 1.0, state, moves)
+    acc_k = float(np.mean(np.asarray(kern.accepts) / moves))
+    acc_p = float(np.mean(np.asarray(plain.accepts) / moves))
+    assert abs(acc_k - acc_p) < 0.02, (acc_k, acc_p)
+    e_k = np.asarray(kern.energy, np.float64)
+    e_p = np.asarray(plain.energy, np.float64)
+    se = np.sqrt(e_k.var() / chains + e_p.var() / chains)
+    assert abs(e_k.mean() - e_p.mean()) < 3 * se, (e_k.mean(), e_p.mean())
 
 
-def test_sweep_chunk_matches_single_shot():
-    """The fused chunked old+new sweep (sweep_chunk, the deep-tile
-    re-tiling experiment) must produce the SAME trajectory as the
-    single-shot sweeps: same RNG draws in the same order, identical
-    accept decisions, energies to fp32 reduction-order noise."""
-    from flowstate_tpu.mcmc.initialise import initialise_fcc
-
-    n = 72  # rows = 72 -> chunks of 24 rows exercise 3 iterations
-    pos, box = initialise_fcc(n, 0.3, 1.0)
-    spec = SystemSpec.create(n, box, num_wells=0)
-    state = init_chain_state(
-        spec, jnp.broadcast_to(jnp.asarray(pos), (3, n, 2)),
-        jax.random.key(0), 0.3)
-    base = run_moves_pallas(spec, 1.0, state, 16, seed=7, interpret=True,
-                            sweep_chunk=0)
-    chunked = run_moves_pallas(spec, 1.0, state, 16, seed=7, interpret=True,
-                               sweep_chunk=24)
-    np.testing.assert_array_equal(np.asarray(chunked.accepts),
-                                  np.asarray(base.accepts))
-    np.testing.assert_allclose(np.asarray(chunked.positions),
-                               np.asarray(base.positions), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(chunked.energy),
-                               np.asarray(base.energy), rtol=1e-5, atol=1e-3)
-    # cached energy equals a full recompute
-    res = resync_energy(spec, chunked)
-    np.testing.assert_allclose(np.asarray(chunked.energy),
-                               np.asarray(res.energy), rtol=1e-5, atol=1e-3)
+def test_kernel_matches_plain_engine():
+    _compare_with_plain_engine(256, 400, interpret=True)
 
 
-def test_sweep_chunk_auto_default():
-    """The auto rule (sweep_chunk=-1, the default) picks the fused sweep
-    for deep tiles and matches the forced single-shot trajectory."""
-    from flowstate_tpu.mcmc.initialise import initialise_fcc
-    from flowstate_tpu.mcmc.pallas_metropolis import _pick_sweep_chunk
+@pytest.mark.gpu
+def test_compiled_kernel_matches_plain_engine():
+    _require_gpu()
+    _compare_with_plain_engine(4096, 2048, interpret=False)
 
-    assert _pick_sweep_chunk(8) == 0 and _pick_sweep_chunk(32) == 0
-    assert _pick_sweep_chunk(128) == 64
-    assert _pick_sweep_chunk(512) == 128
-    assert _pick_sweep_chunk(1024) == 128
-    assert _pick_sweep_chunk(72) == 0  # no pow2 divisor <= 128 under rows
 
-    n = 128
-    pos, box = initialise_fcc(n, 0.3, 1.0)
-    spec = SystemSpec.create(n, box, num_wells=0)
-    state = init_chain_state(
-        spec, jnp.broadcast_to(jnp.asarray(pos), (2, n, 2)),
-        jax.random.key(0), 0.3)
-    auto = run_moves_pallas(spec, 1.0, state, 8, seed=11, interpret=True)
-    single = run_moves_pallas(spec, 1.0, state, 8, seed=11, interpret=True,
-                              sweep_chunk=0)
-    np.testing.assert_array_equal(np.asarray(auto.accepts),
-                                  np.asarray(single.accepts))
-    np.testing.assert_allclose(np.asarray(auto.positions),
-                               np.asarray(single.positions), atol=1e-5)
+@pytest.mark.gpu
+def test_compiled_kernel_matches_plain_engine_at_max_particles():
+    """The compiled kernel at its largest tile (N = MAX_PARTICLES): exact
+    bookkeeping and the plain engine's statistics."""
+    _require_gpu()
+    _compare_with_plain_engine(1024, 500, interpret=False, n=MAX_PARTICLES)

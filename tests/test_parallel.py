@@ -1,20 +1,25 @@
 """Multi-device tests on the virtual 8-CPU mesh: sharded MCMC, DP training,
 and the full dryrun_multichip entry used by the driver."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowstate_tpu.flows import build_circular_flow
-from flowstate_tpu.mcmc import init_alternating_wells, init_chain_state, run_moves_batch
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.parallel import (
+from flowstate.flows import build_circular_flow
+from flowstate.mcmc import init_alternating_wells, init_chain_state, run_moves_batch
+from flowstate.ops import Box, SystemSpec
+from flowstate.parallel import (
     CHAIN_AXIS, all_gather_samples, make_chain_mesh,
     make_data_parallel_train_step, psum_counter, shard_batch,
     shard_chain_state, sharded_chain_fn,
 )
-from flowstate_tpu.training import TrainConfig, TrainState, make_optimizer
+from flowstate.training import TrainConfig, TrainState, make_optimizer
+
+GRAFT_ENTRY = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "__graft_entry__.py")
 
 
 def _spec():
@@ -70,7 +75,7 @@ def test_data_parallel_train_step_matches_single_device():
                                maxval=5.0)
 
     # single-device step
-    from flowstate_tpu.training import make_train_step
+    from flowstate.training import make_train_step
     step1 = make_train_step(model, config, optimizer)
     s1 = TrainState(params, optimizer.init(params), jax.random.key(2))
     s1_out, loss1 = step1(s1, batch)
@@ -92,7 +97,7 @@ def test_data_parallel_train_step_matches_single_device():
 def test_graft_entry_single_chip():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "graft_entry", "/root/repo/__graft_entry__.py")
+        "graft_entry", GRAFT_ENTRY)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     fn, args = mod.entry()
@@ -103,10 +108,13 @@ def test_graft_entry_single_chip():
 def test_graft_entry_dryrun_multichip():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "graft_entry", "/root/repo/__graft_entry__.py")
+        "graft_entry", GRAFT_ENTRY)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.dryrun_multichip(8)
+    checks = mod.dryrun_multichip(8)
+    assert checks["mc_max_rel"] <= mod.MC_REL_TOL
+    assert checks["dp_loss_rel"] <= mod.DP_LOSS_REL_TOL
+    assert checks["dp_params_max_abs"] <= mod.DP_PARAMS_ABS_TOL
 
 
 def test_sharded_tempering_matches_single_device():
@@ -114,7 +122,7 @@ def test_sharded_tempering_matches_single_device():
     axis is data-parallel, the (small) replica axis stays on-device."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from flowstate_tpu.mcmc import (
+    from flowstate.mcmc import (
         init_tempered_state, run_replica_exchange, temperature_ladder,
     )
 
@@ -152,7 +160,7 @@ def test_shard_map_tempering_matches_single_device():
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from flowstate_tpu.mcmc import (
+    from flowstate.mcmc import (
         init_tempered_state, run_replica_exchange, temperature_ladder,
     )
 
@@ -204,7 +212,7 @@ def test_replica_sharded_swap_crosses_shards():
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from flowstate_tpu.mcmc import (
+    from flowstate.mcmc import (
         init_tempered_state, swap_replicas, swap_replicas_replica_sharded,
         temperature_ladder,
     )
@@ -246,7 +254,7 @@ def test_replica_sharded_swap_crosses_shards():
 def test_sharded_mala_matches_single_device():
     """MALA consumes per-chain keys carried in ChainState, so the sharded
     run is bit-identical to the single-device run."""
-    from flowstate_tpu.mcmc import run_mala_batch
+    from flowstate.mcmc import run_mala_batch
 
     spec = _spec()
     mesh = make_chain_mesh(n_devices=4)
@@ -268,7 +276,7 @@ def test_sharded_mala_matches_single_device():
 def test_sharded_hmc_matches_single_device():
     """HMC, like MALA, consumes per-chain keys carried in ChainState, so
     the sharded run is bit-identical to the single-device run."""
-    from flowstate_tpu.mcmc import run_hmc_batch
+    from flowstate.mcmc import run_hmc_batch
 
     spec = _spec()
     mesh = make_chain_mesh(n_devices=4)

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.ops import (
+from flowstate.ops import (
     double_well_potential, double_well_potential_equal, gaussian_double_well,
     lennard_jones_energy_virial, lennard_jones_force,
     tail_correction_energy_2d, tail_correction_pressure_2d,

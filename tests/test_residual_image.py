@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowstate_tpu.flows import (
+from flowstate.flows import (
     ActNormImage, ClassCondFlow, ConvNet2d, DiagGaussian, GlowBlock,
     LipschitzMLP, Merge, MultiscaleFlow, Residual, UniformBase,
 )
@@ -110,7 +110,7 @@ class _CondBase:
 
 
 def test_class_cond_flow():
-    from flowstate_tpu.flows import AffineConstFlow
+    from flowstate.flows import AffineConstFlow
     base = _CondBase(D, 3)
     model = ClassCondFlow(base, (AffineConstFlow(D),))
     params = model.init_params(jax.random.key(12))
@@ -125,7 +125,7 @@ def test_class_cond_flow():
 
 
 def test_multiscale_flow_roundtrip():
-    from flowstate_tpu.flows import AffineConstFlow
+    from flowstate.flows import AffineConstFlow
     d = 8
     bases = (DiagGaussian(d // 2, trainable=False),
              DiagGaussian(d // 2, trainable=False))
@@ -146,7 +146,7 @@ def test_multiscale_flow_roundtrip():
 
 
 def test_lipschitz_cnn_contractive():
-    from flowstate_tpu.flows import LipschitzCNN
+    from flowstate.flows import LipschitzCNN
     net = LipschitzCNN(channels=(2, 8, 2), kernel_size=(3, 3),
                        spatial=(6, 6), coeff=0.9)
     params = net.init_params(jax.random.key(40))
@@ -186,8 +186,8 @@ def test_residual_unbiased_estimator_mean_close_to_exact():
 
 
 def test_roulette_distribution_helpers():
-    from flowstate_tpu.flows import geometric_sample, poisson_sample
-    from flowstate_tpu.flows.residual import geometric_1mcdf, poisson_1mcdf
+    from flowstate.flows import geometric_sample, poisson_sample
+    from flowstate.flows.residual import geometric_1mcdf, poisson_1mcdf
     g = np.asarray(geometric_sample(jax.random.key(10), 0.5, (4000,)))
     assert g.min() >= 1
     assert abs(g.mean() - 2.0) < 0.15          # E[Geom(0.5)] = 1/p = 2
@@ -201,7 +201,7 @@ def test_roulette_distribution_helpers():
 
 
 def test_batch_jacobian_trace_helpers():
-    from flowstate_tpu.flows import batch_jacobian, batch_trace
+    from flowstate.flows import batch_jacobian, batch_trace
     w = jax.random.normal(jax.random.key(12), (D, D))
     x = jax.random.normal(jax.random.key(13), (3, D))
     jac = batch_jacobian(lambda v: jnp.tanh(v @ w), x)
@@ -214,7 +214,7 @@ def test_batch_jacobian_trace_helpers():
 
 
 def test_conv_residual_net_shapes_and_near_identity_blocks():
-    from flowstate_tpu.flows import ConvResidualNet
+    from flowstate.flows import ConvResidualNet
     net = ConvResidualNet(in_channels=2, out_channels=5, hidden_channels=8,
                           num_blocks=2)
     params = net.init_params(jax.random.key(14))
@@ -232,7 +232,7 @@ def test_conv_residual_net_shapes_and_near_identity_blocks():
 
 
 def test_lipschitz_activations():
-    from flowstate_tpu.flows import asym_squash, leaky_elu
+    from flowstate.flows import asym_squash, leaky_elu
     x = jnp.linspace(-5.0, 5.0, 101)
     le = np.asarray(leaky_elu(x))
     # matches the closed form a*x + (1-a)*elu(x)
@@ -265,9 +265,9 @@ def test_residual_unbiased_requires_key_through_public_api():
 def test_conditional_normalizing_flow_end_to_end():
     """ConditionalNormalizingFlow with context-capable couplings: round-trip,
     context-dependent density, conditional sampling."""
-    from flowstate_tpu.flows import (
+    from flowstate.flows import (
         ConditionalNormalizingFlow, ContextAffineCoupling)
-    from flowstate_tpu.flows.toy_targets import ConditionalDiagGaussian
+    from flowstate.flows.toy_targets import ConditionalDiagGaussian
 
     d = 4
     ctx_w = 2 * d  # loc + scale for the conditional base

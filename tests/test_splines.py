@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowstate_tpu.ops import (
+from flowstate.ops import (
     rational_quadratic_spline, unconstrained_rational_quadratic_spline,
 )
-from flowstate_tpu.ops.splines import IDENTITY_DERIVATIVE_CONSTANT
+from flowstate.ops.splines import IDENTITY_DERIVATIVE_CONSTANT
 
 
 def _params(rng, shape, num_bins, num_derivs):

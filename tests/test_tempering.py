@@ -9,12 +9,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.mcmc import (
+from flowstate.mcmc import (
     init_tempered_state, resync_energy, run_replica_exchange,
     run_tempered_moves, swap_replicas, temperature_ladder,
 )
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.ops.potentials import double_well_potential
+from flowstate.ops import Box, SystemSpec
+from flowstate.ops.potentials import double_well_potential
 
 
 def _spec_deep_n1():

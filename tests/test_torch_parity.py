@@ -107,8 +107,8 @@ def test_full_circular_flow_parity_vs_fork(rng):
         for p in model_t.parameters():
             p.copy_(torch.empty_like(p).uniform_(-0.8, 0.8))
 
-    from flowstate_tpu.flows import NormalizingFlow, UniformParticle
-    from flowstate_tpu.flows.coupling import CircularSplineCoupling
+    from flowstate.flows import NormalizingFlow, UniformParticle
+    from flowstate.flows.coupling import CircularSplineCoupling
 
     layer_j = CircularSplineCoupling(
         features=d, num_blocks=n_blocks, hidden_units=hidden,
@@ -150,7 +150,7 @@ def test_context_glu_residualnet_parity_vs_fork(rng):
     _import_fork()
     from normflows.nets import ResidualNet as TorchResidualNet
 
-    from flowstate_tpu.flows.nets import ResidualNet
+    from flowstate.flows.nets import ResidualNet
 
     d_in, d_out, hidden, ctx, blocks = 6, 10, 12, 3, 2
     torch.manual_seed(11)
@@ -177,9 +177,9 @@ def test_conditional_spline_flow_trains_on_toy_target(rng):
     context gap: train on a toy conditional target)."""
     import optax
 
-    from flowstate_tpu.flows import ConditionalNormalizingFlow
-    from flowstate_tpu.flows.coupling import CircularSplineCoupling
-    from flowstate_tpu.flows.distributions import UniformParticle
+    from flowstate.flows import ConditionalNormalizingFlow
+    from flowstate.flows.coupling import CircularSplineCoupling
+    from flowstate.flows.distributions import UniformParticle
 
     d, ctx_dim, bound = 4, 2, 1.0
 

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.flows import DoubleWellLJ, build_circular_flow
-from flowstate_tpu.training import (
+from flowstate.flows import DoubleWellLJ, build_circular_flow
+from flowstate.training import (
     TrainConfig, dedup_subsample, epoch_batches, flatten_configs,
     make_optimizer, make_train_step, sliding_window_update, train, TrainState,
 )

@@ -15,7 +15,7 @@ records what the energy term actually buys/costs:
 
 Writes results/evidence/alpha_study.json; summary lands in RESULTS.md.
 
-Usage (real TPU): python tools/alpha_study.py
+Usage (on the GPU): python tools/alpha_study.py
 """
 
 from __future__ import annotations
@@ -30,15 +30,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from flowstate_tpu.utils.profiling import enable_compilation_cache
+from flowstate.utils.profiling import enable_compilation_cache
 
 try:
     enable_compilation_cache()
 except Exception:
     pass
 
-from flowstate_tpu.experiments import algorithm2
-from flowstate_tpu.utils.config import algorithm2_config
+from flowstate.experiments import algorithm2
+from flowstate.utils.config import algorithm2_config
 
 
 def main(argv=None):

@@ -1,8 +1,6 @@
 """Conditional-flow depth sweep: how shallow can the blocked proposal go?
 
-The blocked-move round's cost is the K-deep coupling chain (per the
-loop-corrected two-roof accounting the round runs at 40% VPU / 32% MXU,
-ARCHITECTURE.md §2), so flow depth is the direct throughput lever: the
+The blocked-move round's cost is the K-deep coupling chain, so flow depth is the direct throughput lever: the
 paired sample + old-log_prob pass costs K serial coupling steps, each
 with ~2 conditioner-net applications.  This tool asks whether the production config
 (K=10, from the global-flow default) is deeper than the 2-dim k=1
@@ -19,7 +17,7 @@ Reference lineage: the depth knob is the reference's ``K`` stack count
 (``hybrid_NF_MCMC/main_algorithm_1.py:57-67``, K=15 global); the
 reference never separates proposal quality from proposal cost.
 
-Usage (real TPU): python tools/blocked_depth.py --K_list 4,6,10
+Usage (on the GPU): python tools/blocked_depth.py --K_list 4,6,10
 Writes results/evidence/blocked_depth.json.
 """
 
@@ -38,7 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.utils.profiling import enable_compilation_cache
+from flowstate.utils.profiling import enable_compilation_cache
 
 try:
     enable_compilation_cache()
@@ -48,16 +46,16 @@ except Exception:
 from ess_check import well_counts, well_state
 from hybrid_n_scaling import _ess_fields, _timed, init_split_wells
 
-from flowstate_tpu.analysis.ess import crossing_bound_ess, multichain_ess
-from flowstate_tpu.flows import build_conditional_circular_flow
-from flowstate_tpu.mcmc import (
+from flowstate.analysis.ess import crossing_bound_ess, multichain_ess
+from flowstate.flows import build_conditional_circular_flow
+from flowstate.mcmc import (
     blocked_big_moves, fourier_context, fourier_context_dim,
     init_chain_state, init_tempered_state, run_equilibration, run_moves,
     run_replica_exchange, temperature_ladder,
 )
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.training import TrainConfig
-from flowstate_tpu.training.blocked import train_blocked
+from flowstate.ops import Box, SystemSpec
+from flowstate.training import TrainConfig
+from flowstate.training.blocked import train_blocked
 
 BENCH_CHAINS = 16384  # bench.py's production ensemble
 ROUNDS_PER_CALL = 64
@@ -102,7 +100,7 @@ def main(argv=None):
     state0 = init_chain_state(spec, pos, jax.random.key(n), 0.65)
     state0 = jax.jit(jax.vmap(
         lambda s: run_equilibration(spec, beta, s, 20000, 500)))(state0)
-    jax.device_get(state0.positions)
+    jax.block_until_ready(state0.positions)
     print(f"N={n}: equilibrated {c} chains", flush=True)
 
     # ---- PT oracle + training data, ONCE (identical recipe to
@@ -116,7 +114,7 @@ def main(argv=None):
         jax.random.key(100 + n), 0.65)
     st_pt = jax.jit(jax.vmap(lambda b, s: jax.vmap(
         lambda t: run_equilibration(spec, b, t, 2000, 500))(s)))(betas, st_pt)
-    jax.device_get(st_pt.positions)
+    jax.block_until_ready(st_pt.positions)
 
     @jax.jit
     def pt(st):
@@ -224,11 +222,11 @@ def main(argv=None):
 
                 sb = blocked_rounds(st_bench0)
                 sb = blocked_rounds(sb)
-                _ = jax.device_get(sb.energy)
+                jax.block_until_ready(sb.energy)
                 t0 = time.perf_counter()
                 for _ in range(BIG_CALLS):
                     sb = blocked_rounds(sb)
-                _ = jax.device_get(sb.energy)
+                jax.block_until_ready(sb.energy)
                 dt_blk = time.perf_counter() - t0
                 rps = ROUNDS_PER_CALL * BIG_CALLS / dt_blk
                 row["blocked_moves_per_s"] = round(BENCH_CHAINS * rps, 1)

@@ -22,7 +22,7 @@ Writes results/evidence/blocked_wall.json.  The acceptance-vs-k table
 and its N-(in)dependence are the headline; the dF agreement is the
 correctness gate.
 
-Usage (real TPU): python tools/blocked_wall.py --n_list 8,16,32
+Usage (on the GPU): python tools/blocked_wall.py --n_list 8,16,32
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.utils.profiling import enable_compilation_cache
+from flowstate.utils.profiling import enable_compilation_cache
 
 try:
     enable_compilation_cache()
@@ -50,18 +50,18 @@ except Exception:
 from ess_check import well_counts, well_state
 from hybrid_n_scaling import _ess_fields, _timed, init_split_wells
 
-from flowstate_tpu.analysis.ess import crossing_bound_ess, multichain_ess
-from flowstate_tpu.flows import build_conditional_circular_flow
-from flowstate_tpu.mcmc import (
+from flowstate.analysis.ess import crossing_bound_ess, multichain_ess
+from flowstate.flows import build_conditional_circular_flow
+from flowstate.mcmc import (
     blocked_big_moves, fourier_context, fourier_context_dim,
     init_chain_state, init_tempered_state, run_equilibration, run_moves,
     run_replica_exchange, temperature_ladder,
 )
-from flowstate_tpu.mcmc.blocked import block_context, context_dim
-from flowstate_tpu.mcmc.hybrid import to_centered
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.training import TrainConfig
-from flowstate_tpu.training.blocked import train_blocked
+from flowstate.mcmc.blocked import block_context, context_dim
+from flowstate.mcmc.hybrid import to_centered
+from flowstate.ops import Box, SystemSpec
+from flowstate.training import TrainConfig
+from flowstate.training.blocked import train_blocked
 
 
 def make_context(args, n: int, k: int, half_box: float):
@@ -86,7 +86,7 @@ def run_for_n(n: int, args) -> dict:
     state0 = init_chain_state(spec, pos, jax.random.key(n), 0.65)
     state0 = jax.jit(jax.vmap(
         lambda s: run_equilibration(spec, beta, s, 20000, 500)))(state0)
-    jax.device_get(state0.positions)
+    jax.block_until_ready(state0.positions)
     print(f"N={n}: equilibrated {c} chains "
           f"(E/N={float(state0.energy.mean())/n:.2f})", flush=True)
 
@@ -100,7 +100,7 @@ def run_for_n(n: int, args) -> dict:
         jax.random.key(100 + n), 0.65)
     st_pt = jax.jit(jax.vmap(lambda b, s: jax.vmap(
         lambda t: run_equilibration(spec, b, t, 2000, 500))(s)))(betas, st_pt)
-    jax.device_get(st_pt.positions)
+    jax.block_until_ready(st_pt.positions)
 
     @jax.jit
     def pt(st):

@@ -30,7 +30,7 @@ their data has only the init sectors) vs the dimension itself.
 Writes results/evidence/hybrid_n_scaling.json; the table lands in
 RESULTS.md (hand-edited from the JSON).
 
-Usage (real TPU): python tools/hybrid_n_scaling.py --n_list 8,16,32
+Usage (on the GPU): python tools/hybrid_n_scaling.py --n_list 8,16,32
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.utils.profiling import enable_compilation_cache
+from flowstate.utils.profiling import enable_compilation_cache
 
 try:
     enable_compilation_cache()
@@ -57,19 +57,19 @@ except Exception:
 
 from ess_check import well_counts, well_state
 
-from flowstate_tpu.analysis.ess import crossing_bound_ess, multichain_ess
-from flowstate_tpu.flows import build_circular_flow
-from flowstate_tpu.mcmc import (
+from flowstate.analysis.ess import crossing_bound_ess, multichain_ess
+from flowstate.flows import build_circular_flow
+from flowstate.mcmc import (
     init_chain_state, init_tempered_state, nf_big_moves, run_equilibration,
     run_moves, run_replica_exchange, temperature_ladder,
 )
-from flowstate_tpu.mcmc.hybrid import to_centered
-from flowstate_tpu.mcmc.initialise import (
+from flowstate.mcmc.hybrid import to_centered
+from flowstate.mcmc.initialise import (
     init_alternating_wells, initialise_fcc_left_half,
     initialise_fcc_right_half,
 )
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.training import TrainConfig, train
+from flowstate.ops import Box, SystemSpec
+from flowstate.training import TrainConfig, train
 
 
 def _timed(fn, *args):
@@ -77,9 +77,9 @@ def _timed(fn, *args):
     # ~2x slow (the r4 warmup trap, logs/train_variance_r4.log) — a single
     # warmup times the slow tail and understates throughput up to ~2x
     out = fn(*args)
-    jax.device_get(jax.tree_util.tree_leaves(out)[0])
+    jax.block_until_ready(jax.tree_util.tree_leaves(out)[0])
     out = fn(*args)
-    jax.device_get(jax.tree_util.tree_leaves(out)[0])
+    jax.block_until_ready(jax.tree_util.tree_leaves(out)[0])
     t0 = time.perf_counter()
     out = fn(*args)
     out = jax.device_get(out)
@@ -153,7 +153,7 @@ def run_for_n(n: int, args) -> dict:
     # from the packed-well equilibrium at 5k (cheap on the XLA engine)
     state0 = jax.jit(jax.vmap(
         lambda s: run_equilibration(spec, beta, s, 20000, 500)))(state0)
-    jax.device_get(state0.positions)
+    jax.block_until_ready(state0.positions)
     print(f"N={n}: equilibrated {c} chains "
           f"(E/N={float(state0.energy.mean())/n:.2f})", flush=True)
 
@@ -179,7 +179,7 @@ def run_for_n(n: int, args) -> dict:
         jax.random.key(100 + n), 0.65)
     st_pt = jax.jit(jax.vmap(lambda b, s: jax.vmap(
         lambda t: run_equilibration(spec, b, t, 2000, 500))(s)))(betas, st_pt)
-    jax.device_get(st_pt.positions)
+    jax.block_until_ready(st_pt.positions)
 
     pt_rounds = args.pt_rounds
 
@@ -310,7 +310,7 @@ def main(argv=None):
                     default="results/evidence/hybrid_n_scaling.json")
     ap.add_argument("--resuppress", action="store_true",
                     help="only re-apply the unreliable-ESS suppression "
-                         "rule to the existing JSON (no TPU run)")
+                         "rule to the existing JSON (no device run)")
     args = ap.parse_args(argv)
 
     if args.resuppress:

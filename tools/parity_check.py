@@ -1,4 +1,4 @@
-"""Statistical parity check: reference CPU engine vs flowstate_tpu.
+"""Statistical parity check: reference CPU engine vs flowstate.
 
 Runs the ACTUAL reference implementation (/root/reference/MCMC, imported
 read-only) and this framework on the identical system (N=3, rho=0.03, T=1,
@@ -76,10 +76,10 @@ def run_ours(total_moves: int, sampling_frequency: int, chains: int,
              seed: int):
     import jax
     import jax.numpy as jnp
-    from flowstate_tpu.mcmc import (
+    from flowstate.mcmc import (
         init_alternating_wells, init_chain_state, run_production_batch,
     )
-    from flowstate_tpu.ops import Box, SystemSpec
+    from flowstate.ops import Box, SystemSpec
 
     spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0), num_wells=2,
                              V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
@@ -94,11 +94,11 @@ def run_ours(total_moves: int, sampling_frequency: int, chains: int,
 
 
 def analyze(configs: np.ndarray, label: str):
-    from flowstate_tpu.analysis import (
+    from flowstate.analysis import (
         calculate_pair_correlation, classify_particles,
         state_histogram_counts,
     )
-    from flowstate_tpu.analysis.wells import WELL_A, WELL_B
+    from flowstate.analysis.wells import WELL_A, WELL_B
 
     cls = classify_particles(configs, 5.0, 1.2)
     frac_a = float(np.mean(cls == WELL_A))
@@ -115,7 +115,7 @@ def config_energies(configs: np.ndarray) -> np.ndarray:
     """Total energy of each (N, 2) box-frame config, batched on device."""
     import jax
     import jax.numpy as jnp
-    from flowstate_tpu.ops import Box, SystemSpec, total_energy_virial
+    from flowstate.ops import Box, SystemSpec, total_energy_virial
 
     spec = SystemSpec.create(3, Box.from_density(3, 0.03, 1.0), num_wells=2,
                              V0_list=(-10.0, -10.5), r0=1.2, k=15.0)
@@ -157,14 +157,14 @@ def main():
                         ours=our_configs.astype(np.float32))
 
     ref = analyze(ref_configs, "reference (CPU serial)")
-    ours = analyze(our_configs, "flowstate_tpu")
+    ours = analyze(our_configs, "flowstate")
 
     # comparisons
     lines = []
     lines.append("# PARITY — statistical agreement vs the reference engine\n")
     lines.append(f"Identical system (N=3, rho=0.03, T=1, V0=[-10,-10.5], "
                  f"r0=1.2, k=15), {args.moves:,} total moves each.\n")
-    lines.append("| Observable | reference | flowstate_tpu |")
+    lines.append("| Observable | reference | flowstate |")
     lines.append("|---|---|---|")
     lines.append(f"| samples analyzed | {ref['n_configs']:,} "
                  f"| {ours['n_configs']:,} |")

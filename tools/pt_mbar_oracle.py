@@ -12,7 +12,7 @@ SURVEY.md §5 lists only the occupancy-ratio ΔF).
 Writes the result into results/evidence/hybrid_n_scaling.json under
 each system's "pt_mbar" key.
 
-Usage (real TPU): python tools/pt_mbar_oracle.py --n_list 8,16,32
+Usage (on the GPU): python tools/pt_mbar_oracle.py --n_list 8,16,32
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.utils.profiling import enable_compilation_cache
+from flowstate.utils.profiling import enable_compilation_cache
 
 try:
     enable_compilation_cache()
@@ -39,12 +39,12 @@ except Exception:
 from ess_check import well_counts
 from hybrid_n_scaling import init_split_wells
 
-from flowstate_tpu.analysis.mbar import mbar_free_energies, mbar_log_weights
-from flowstate_tpu.mcmc import (
+from flowstate.analysis.mbar import mbar_free_energies, mbar_log_weights
+from flowstate.mcmc import (
     init_tempered_state, run_equilibration, run_replica_exchange,
     temperature_ladder,
 )
-from flowstate_tpu.ops import Box, SystemSpec
+from flowstate.ops import Box, SystemSpec
 
 
 def weighted_particle_df(log_w: np.ndarray, n_a: np.ndarray,
@@ -68,7 +68,7 @@ def run_for_n(n: int, args) -> dict:
         jax.random.key(300 + n), 0.65)
     st = jax.jit(jax.vmap(lambda b, s: jax.vmap(
         lambda t: run_equilibration(spec, b, t, 2000, 500))(s)))(betas, st)
-    jax.device_get(st.positions)
+    jax.block_until_ready(st.positions)
 
     @jax.jit
     def pt(state):

@@ -19,7 +19,7 @@ collective mechanisms (PT, NF teleports) turn wall-clock into barrier
 crossings, and only they are allowed an ESS/s headline (pinned chains
 gate out, ess_check.py semantics).
 
-Usage (real TPU): python tools/sampler_bench.py
+Usage (on the GPU): python tools/sampler_bench.py
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.utils.profiling import enable_compilation_cache
+from flowstate.utils.profiling import enable_compilation_cache
 
 try:
     enable_compilation_cache()
@@ -46,29 +46,29 @@ except Exception:
 
 from ess_check import exact_particle_df, well_counts, well_state
 
-from flowstate_tpu.analysis.ess import multichain_ess
-from flowstate_tpu.flows import build_circular_flow
-from flowstate_tpu.mcmc import (
+from flowstate.analysis.ess import multichain_ess
+from flowstate.flows import build_circular_flow
+from flowstate.mcmc import (
     init_alternating_wells, init_chain_state, init_tempered_state,
     nf_big_moves, run_equilibration, run_mala, run_mala_equilibration,
     run_moves, run_replica_exchange, temperature_ladder,
 )
-from flowstate_tpu.mcmc.hybrid import to_centered
-from flowstate_tpu.ops import Box, SystemSpec
-from flowstate_tpu.training import TrainConfig, train
+from flowstate.mcmc.hybrid import to_centered
+from flowstate.ops import Box, SystemSpec
+from flowstate.training import TrainConfig, train
 
 
 def _timed(fn, *args):
     """Compile+warm once, then time a second identical run (device wall)."""
     out = fn(*args)
-    jax.device_get(jax.tree_util.tree_leaves(out)[0])
+    jax.block_until_ready(jax.tree_util.tree_leaves(out)[0])
     t0 = time.perf_counter()
     out = fn(*args)
     out = jax.device_get(out)
     return out, time.perf_counter() - t0
 
 
-from flowstate_tpu.analysis.ess import crossing_bound_ess as \
+from flowstate.analysis.ess import crossing_bound_ess as \
     _crossing_bound_ess  # noqa: E402  (shared with ess_check.py)
 
 
@@ -136,7 +136,7 @@ def main(argv=None) -> dict:
                               jax.random.key(0), 0.65)
     state0 = jax.jit(jax.vmap(
         lambda s: run_equilibration(spec, beta, s, 5000, 500)))(state0)
-    jax.device_get(state0.positions)
+    jax.block_until_ready(state0.positions)
     print(f"equilibrated {c} chains", flush=True)
 
     def record(s):
@@ -171,7 +171,7 @@ def main(argv=None) -> dict:
         mala0 = jax.jit(jax.vmap(lambda s: run_mala_equilibration(
             spec, beta, s, 1000, 100)))(state0._replace(
                 max_disp=jnp.full_like(state0.max_disp, 0.02)))
-        jax.device_get(mala0.positions)
+        jax.block_until_ready(mala0.positions)
         mala = scan_rounds(jax.vmap(lambda t: run_mala(spec, beta, t, mpr)))
         (s_end, w, n_a, n_b), dt = _timed(mala, mala0)
         acc = (s_end.accepts - mala0.accepts).sum() / (
@@ -182,13 +182,12 @@ def main(argv=None) -> dict:
 
     # ---- 3) HMC ----------------------------------------------------------
     if "hmc" in which:
-        from flowstate_tpu.mcmc import run_hmc, run_hmc_equilibration
+        from flowstate.mcmc import run_hmc, run_hmc_equilibration
         n_leap = 10
         hmc0 = jax.jit(jax.vmap(lambda s: run_hmc_equilibration(
             spec, beta, s, 500, 50, n_leap)))(state0._replace(
                 max_disp=jnp.full_like(state0.max_disp, 0.05)))
-        jax.device_get(hmc0.positions)
-        # budget matched in GRADIENT evaluations, not trajectories: one
+        jax.block_until_ready(hmc0.positions)
         # n_leap-step trajectory costs n_leap+1 grads, so run mpr/n_leap
         # trajectories per round (same O(N^2)-pass count as the MALA row)
         traj = max(1, mpr // n_leap)

@@ -4,7 +4,7 @@ Measures chain-throughput scaling 1 -> N devices (the BASELINE.md north
 star: >= 85% efficiency) for the sharded Metropolis engine and the
 data-parallel training step.  Runs on the 8-device virtual CPU backend so
 it exercises the real shard_map/psum code paths (wall-clock numbers are CPU
-numbers; the sharding structure is identical on a TPU pod slice).
+numbers; the sharding structure is the one the GPUs run).
 
 Usage: JAX_PLATFORMS=cpu python tools/scaling_check.py
 """
@@ -31,11 +31,11 @@ import numpy as np  # noqa: E402
 
 def measure_mcmc(n_devices: int, chains_per_device: int = 512,
                  moves: int = 200) -> float:
-    from flowstate_tpu.mcmc import (
+    from flowstate.mcmc import (
         init_alternating_wells, init_chain_state, run_moves_batch,
     )
-    from flowstate_tpu.ops import Box, SystemSpec
-    from flowstate_tpu.parallel import (
+    from flowstate.ops import Box, SystemSpec
+    from flowstate.parallel import (
         make_chain_mesh, shard_chain_state, sharded_chain_fn,
     )
 
@@ -49,22 +49,22 @@ def measure_mcmc(n_devices: int, chains_per_device: int = 512,
     fn = jax.jit(sharded_chain_fn(
         lambda s: run_moves_batch(spec, 1.0, s, moves), mesh))
     s = fn(state)
-    jax.device_get(s.energy)  # compile + sync
+    jax.block_until_ready(s.energy)
     t0 = time.perf_counter()
     for _ in range(3):
         s = fn(s)
-    jax.device_get(s.energy)
+    jax.block_until_ready(s.energy)
     dt = (time.perf_counter() - t0) / 3
     return c * moves / dt
 
 
 def measure_training(n_devices: int, batch_per_device: int = 128,
                      steps: int = 5) -> float:
-    from flowstate_tpu.flows import build_circular_flow
-    from flowstate_tpu.parallel import (
+    from flowstate.flows import build_circular_flow
+    from flowstate.parallel import (
         make_chain_mesh, make_data_parallel_train_step, shard_batch,
     )
-    from flowstate_tpu.training import TrainConfig, TrainState, make_optimizer
+    from flowstate.training import TrainConfig, TrainState, make_optimizer
 
     model = build_circular_flow(3, 2, 5.0, K=4, hidden_units=64, num_bins=8)
     params = model.init_params(jax.random.key(0))
@@ -79,11 +79,11 @@ def measure_training(n_devices: int, batch_per_device: int = 128,
         mesh)
     st = TrainState(params, optimizer.init(params), jax.random.key(2))
     st, loss = step(st, batch)
-    jax.device_get(loss)
+    jax.block_until_ready(loss)
     t0 = time.perf_counter()
     for _ in range(steps):
         st, loss = step(st, batch)
-    jax.device_get(loss)
+    jax.block_until_ready(loss)
     dt = (time.perf_counter() - t0) / steps
     return config.batch_size / dt
 
@@ -93,7 +93,7 @@ def main() -> None:
     lines = ["# SCALING — multi-device efficiency (virtual 8-CPU mesh)\n",
              "Weak scaling: per-device work fixed, devices swept; efficiency",
              "= throughput(N) / (N * throughput(1)).  Structure identical to",
-             "a TPU pod slice (shard_map over Mesh(('chains',)) + psum).\n"]
+             "the multi-GPU mesh (shard_map over Mesh(('chains',)) + psum).\n"]
 
     lines.append("## Metropolis engine (chains axis)\n")
     lines.append("| devices | chains | moves/s | efficiency |")

@@ -41,7 +41,7 @@ def sector_labels(positions: np.ndarray, half_box: float,
                   r0: float = 1.2) -> np.ndarray:
     """(C, T, N, 2) -> (C, T) int: 0..3 = n_B for in-well configs,
     4 = any particle outside both wells."""
-    from flowstate_tpu.analysis import classify_particles
+    from flowstate.analysis import classify_particles
 
     lab = classify_particles(positions, half_box, r0)  # (C, T, N)
     n_b = (lab == 1).sum(axis=-1)

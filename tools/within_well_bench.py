@@ -22,7 +22,7 @@ al.), burn-in first third.
 Writes results/evidence/within_well.json and splices the section into
 SAMPLERS.md (idempotent, marker-delimited).
 
-Usage (real TPU): python tools/within_well_bench.py
+Usage (on the GPU): python tools/within_well_bench.py
 """
 
 from __future__ import annotations
@@ -39,20 +39,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flowstate_tpu.utils.profiling import enable_compilation_cache
+from flowstate.utils.profiling import enable_compilation_cache
 
 try:
     enable_compilation_cache()
 except Exception:
     pass
 
-from flowstate_tpu.analysis.ess import multichain_ess
-from flowstate_tpu.mcmc import (
+from flowstate.analysis.ess import multichain_ess
+from flowstate.mcmc import (
     init_chain_state, run_equilibration, run_hmc, run_hmc_equilibration,
     run_mala, run_mala_equilibration, run_moves,
 )
-from flowstate_tpu.mcmc.initialise import initialise_low_left
-from flowstate_tpu.ops import Box, SystemSpec
+from flowstate.mcmc.initialise import initialise_low_left
+from flowstate.ops import Box, SystemSpec
 
 SECTION_BEGIN = "<!-- within-well:begin -->"
 SECTION_END = "<!-- within-well:end -->"
@@ -63,9 +63,9 @@ def _timed(fn, *args):
     # ~2x slow (the r4 warmup trap, logs/train_variance_r4.log) — a single
     # warmup times the slow tail and understates throughput up to ~2x
     out = fn(*args)
-    jax.device_get(jax.tree_util.tree_leaves(out)[0])
+    jax.block_until_ready(jax.tree_util.tree_leaves(out)[0])
     out = fn(*args)
-    jax.device_get(jax.tree_util.tree_leaves(out)[0])
+    jax.block_until_ready(jax.tree_util.tree_leaves(out)[0])
     t0 = time.perf_counter()
     out = fn(*args)
     out = jax.device_get(out)
@@ -100,7 +100,7 @@ def bench_system(n, chains, rounds, n_leap=10, sweeps_per_round=50):
     if n <= 12:
         pos, _ = initialise_low_left(n, 0.03)
     else:
-        from flowstate_tpu.mcmc.initialise import initialise_fcc_left_half
+        from flowstate.mcmc.initialise import initialise_fcc_left_half
         pos, _ = initialise_fcc_left_half(n, 0.03, 1.0)
     pos = jnp.broadcast_to(jnp.asarray(pos), (chains, n, 2))
     # jitter so chains decorrelate from the shared lattice start
@@ -112,7 +112,7 @@ def bench_system(n, chains, rounds, n_leap=10, sweeps_per_round=50):
     equil = max(5000, 150 * n)
     state0 = jax.jit(jax.vmap(
         lambda s: run_equilibration(spec, beta, s, equil, 500)))(state0)
-    jax.device_get(state0.positions)
+    jax.block_until_ready(state0.positions)
     print(f"N={n}: equilibrated {chains} chains "
           f"(E/N={float(state0.energy.mean())/n:.2f})", flush=True)
 
@@ -164,7 +164,7 @@ def bench_system(n, chains, rounds, n_leap=10, sweeps_per_round=50):
         spec, beta, s, 1000, 100)))(state0._replace(
             max_disp=jnp.full_like(state0.max_disp, 0.02),
             prev_attempts=state0.attempts, prev_accepts=state0.accepts))
-    jax.device_get(mala0.positions)
+    jax.block_until_ready(mala0.positions)
     mala = scan_rounds(spec, jax.vmap(
         lambda t: run_mala(spec, beta, t, mpr_mala)), rounds)
     (s_end, e, x), dt = _timed(mala, mala0)
@@ -175,7 +175,7 @@ def bench_system(n, chains, rounds, n_leap=10, sweeps_per_round=50):
         spec, beta, s, 500, 50, n_leap)))(state0._replace(
             max_disp=jnp.full_like(state0.max_disp, 0.05),
             prev_attempts=state0.attempts, prev_accepts=state0.accepts))
-    jax.device_get(hmc0.positions)
+    jax.block_until_ready(hmc0.positions)
     hmc = scan_rounds(spec, jax.vmap(
         lambda t: run_hmc(spec, beta, t, traj_hmc, n_leap)), rounds)
     (s_end, e, x), dt = _timed(hmc, hmc0)
@@ -212,7 +212,7 @@ def build_verdict(rows) -> str:
         + "; ".join(per_n) + ".  "
         "Whole-config gradient steps shrink as d^(-1/4..-1/3) with "
         "dimension while single-particle displacements stay O(1), and "
-        "the TPU engine makes the N-fold move-count advantage free "
+        "the batched engine makes the N-fold move-count advantage free "
         "(vectorized, gradient-free) — so Metropolis holds the wall-"
         "clock lead unless/until the gradient samplers overtake on the "
         "slowest observable at large N (see the N=128 row).  When to "
